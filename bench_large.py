@@ -1,14 +1,11 @@
 """At-scale PDHG benchmark (10M nnz — BASELINE config 5 shape).
 
-NOT run by the driver (bench.py is the stable headline metric); this script
-records the at-scale numbers where the platform's ~350us/op dispatch floor
-is amortized.  Prints one JSON line.
+Complements bench.py at a size where the matrix no longer fits in the
+GPU's L2 cache.  Prints one JSON line.
 """
 
 import json
 import time
-
-import numpy as np
 
 from bench import cpu_baseline_iters_per_sec
 
@@ -44,16 +41,11 @@ def main():
         jax.random.PRNGKey(1), (prob.c.shape[0],), dtype=prob.c.dtype))
     state = initial_state(prob, sigma)
 
-    def sync(arr):
-        return float(np.asarray(jnp.sum(arr)))
-
-    state = run_block(prob, state)
-    sync(state.x)
+    state = jax.block_until_ready(run_block(prob, state))
     best = float("inf")
     for _ in range(REPS):
         t0 = time.perf_counter()
-        state = run_block(prob, state)
-        sync(state.x)
+        state = jax.block_until_ready(run_block(prob, state))
         best = min(best, time.perf_counter() - t0)
     ips = MAJORS * params.termination_check_frequency / best
     cpu = cpu_baseline_iters_per_sec(qp, iters=16)

@@ -27,15 +27,9 @@ def main():
     scale = float(sys.argv[1]) if len(sys.argv) > 1 else 1.0
     tlim = float(sys.argv[2]) if len(sys.argv) > 2 else 120.0
 
-    import os
-    import jax
-    cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             ".jax_cache")
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from ortools_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
 
     from ortools_tpu.mip.branch_and_bound import solve as mip_solve
     from ortools_tpu.models.mip_generators import miplib_like_battery

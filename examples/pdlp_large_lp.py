@@ -1,7 +1,7 @@
 """PDLP at scale: sharded solve of a multi-commodity-flow LP
 (parity: pdlp/samples/simple_pdlp_program + BASELINE config 5 shape).
 
-On TPU this runs the single-chip path; with 8 virtual CPU devices
+On one GPU this runs the single-device path; with 8 virtual CPU devices
 (XLA_FLAGS=--xla_force_host_platform_device_count=8) it exercises the
 block-sharded mesh path."""
 
@@ -19,7 +19,7 @@ def main():
     print(f"LP: {qp.num_constraints} rows x {qp.num_variables} cols, "
           f"{qp.num_nonzeros} nnz")
     params = PdhgParams(
-        dtype=jnp.float64 if jax.default_backend() == "cpu" else jnp.float32,
+        dtype=jnp.float64 if jax.config.jax_enable_x64 else jnp.float32,
         eps_optimal_absolute=1e-6, eps_optimal_relative=1e-6,
         iteration_limit=200_000,
     )

@@ -1,7 +1,7 @@
-"""ortools_tpu — a TPU-native combinatorial-optimization framework.
+"""ortools_tpu — an accelerator-native combinatorial-optimization framework.
 
 A from-scratch rebuild of the capabilities of Google OR-Tools v9.7
-(reference surveyed in SURVEY.md) designed for TPU hardware:
+(reference surveyed in SURVEY.md) designed for JAX on a GPU:
 
 - ``ortools_tpu.pdlp``    — first-order LP/QP solver (restarted PDHG), the
   numerically dense core.  SpMV and vector ops run as XLA/Pallas programs
@@ -21,7 +21,7 @@ A from-scratch rebuild of the capabilities of Google OR-Tools v9.7
   (parity target: ``ortools/lp_data``).
 - ``ortools_tpu.ops``     — device kernels: block-sparse SpMV/SpMM,
   scans, deterministic reductions.
-- ``ortools_tpu.parallel``— mesh/sharding layer (the TPU-native equivalent
+- ``ortools_tpu.parallel``— mesh/sharding layer (the device equivalent
   of ``ortools/pdlp/sharder.h`` and CP-SAT's portfolio threading).
 """
 

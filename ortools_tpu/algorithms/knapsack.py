@@ -4,9 +4,9 @@ Capability parity: ``ortools/algorithms/knapsack_solver.h:113`` — the
 multi-algorithm facade: dynamic programming, branch and bound, brute force,
 and a MIP fallback for multi-dimensional problems (reference :127-194).
 
-TPU note: the DP recurrence dp[w] = max(dp[w], dp[w - w_i] + v_i) is a
+Device note: the DP recurrence dp[w] = max(dp[w], dp[w - w_i] + v_i) is a
 vectorized shift+max over the capacity axis — offered on device via
-``dp_knapsack_jax`` (one fori_loop over items, O(W) state on the VPU);
+``dp_knapsack_jax`` (one fori_loop over items, O(W) state on device);
 the numpy path is the host default for small problems.
 """
 

@@ -66,6 +66,9 @@ def main(argv=None) -> int:
     pb = sub.add_parser("bench", help="run the benchmark")
     pb.set_defaults(fn=_cmd_bench)
     args = p.parse_args(argv)
+    from ortools_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -17,7 +17,7 @@ def held_karp_tsp(dist: np.ndarray, start: int = 0
     """Exact TSP tour by Held-Karp DP, O(2^n n^2).  n <= ~18.
 
     The DP over subsets is expressed as dense numpy updates per subset
-    size (the same table layout vectorizes on TPU for batched instances).
+    size (the same table layout vectorizes on device for batched instances).
     """
     n = dist.shape[0]
     assert n <= 20, "Held-Karp is exponential; use routing for larger n"

@@ -4,7 +4,7 @@ Capability parity: ``ortools/linear_solver`` — the MPSolver facade
 (linear_solver.h:186) and the newer ``model_builder.py`` Python API — over
 the framework's own backends:
 
-- ``"pdlp"``  -> ortools_tpu.pdlp (first-order, TPU)
+- ``"pdlp"``  -> ortools_tpu.pdlp (first-order, on device)
 - ``"glop"``  -> ortools_tpu.glop (host simplex; exact basic solutions)
 - ``"mip"`` / ``"sat"`` -> ortools_tpu.mip batched branch-and-bound
   (selected automatically when integer variables are present)

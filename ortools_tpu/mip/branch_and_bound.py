@@ -2,7 +2,7 @@
 
 Capability parity: the reference's MIP path (CP-SAT with an LP relaxation,
 ``ortools/sat/linear_programming_constraint.*`` + integer search), re-designed
-per SURVEY §7 Phase 3 for TPU:
+per SURVEY §7 Phase 3 for an accelerator:
 
 - node LP relaxations are bounded by *batched* PDHG — B&B nodes differ from
   the root only in variable bounds, so up to ``node_batch_size`` node LPs
@@ -55,6 +55,7 @@ from ortools_tpu.mip.node_lp import SimplexNodeBackend, choose_backend
 from ortools_tpu.mip.propagation import propagate_bounds
 from ortools_tpu.models.lp import QuadraticProgram
 from ortools_tpu.pdlp.params import PdhgParams
+from ortools_tpu.utils.device import is_accelerator
 from ortools_tpu.utils.status import MPSolverStatus
 
 
@@ -138,8 +139,8 @@ class MipParams:
     initial_solution: Optional[np.ndarray] = None
     # Device feasibility jump (sat/fj_device.py — vmapped multi-seed FJ
     # in objective-descent mode) as a root heuristic on pure-binary
-    # models: "auto" engages only when jax's default backend is a TPU
-    # (on CPU hosts the numpy FJ path is faster); "on"/"off" force it.
+    # models: "auto" engages only on an accelerator (utils/device.py;
+    # on CPU hosts the numpy FJ path is faster); "on"/"off" force it.
     device_fj: str = "auto"
     device_fj_seconds: float = 10.0
 
@@ -737,20 +738,16 @@ def solve(qp: QuadraticProgram, params: Optional[MipParams] = None,
                     try_incumbent(rsub.solution)
 
     # Device feasibility jump at the root (reference portfolio's
-    # FeasibilityJumpSolver recast as a vmapped multi-seed TPU kernel,
+    # FeasibilityJumpSolver recast as a vmapped multi-seed device kernel,
     # sat/fj_device.py): objective-descent mode hunts a strictly better
     # incumbent with 64 seeds advancing per jitted dispatch.  Engages on
-    # TPU backends ("auto"); every result passes try_incumbent's checker.
+    # an accelerator ("auto"); every result passes try_incumbent's checker.
     if (len(int_idx) == n and incumbent_x is not None
             and params.device_fj != "off"
             and np.all(qp_min.variable_lower[int_idx] >= -1e-9)
             and np.all(qp_min.variable_upper[int_idx] <= 1 + 1e-9)):
-        use_dev = params.device_fj == "on"
-        if params.device_fj == "auto":
-            try:
-                use_dev = jax.default_backend() in ("tpu",)
-            except Exception:
-                use_dev = False
+        use_dev = params.device_fj == "on" or (
+            params.device_fj == "auto" and is_accelerator())
         remaining_fj = params.time_limit_sec - (
             time.perf_counter() - start)
         if use_dev and remaining_fj > 8.0:

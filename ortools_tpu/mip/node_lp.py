@@ -5,10 +5,10 @@ warm-started dual simplex embedded in the search
 (``ortools/sat/linear_programming_constraint.h:442`` holds a
 ``glop::RevisedSimplex``; bound-change re-solves enter at
 ``glop/revised_simplex.cc:3058`` DualMinimize).  This module gives the MIP
-tree the same two-speed design, TPU-first:
+tree the same two-speed design, device-first:
 
 - ``PdhgNodeBackend`` — batched PDHG (pdlp/batched.py): B node LPs advance
-  per jitted step, SpMV becomes SpMM on the MXU.  The scale path.
+  per jitted step, SpMV becomes SpMM.  The scale path.
 - ``SimplexNodeBackend`` — one persistent host ``RevisedSimplex`` re-solved
   per node with the dual simplex (the basis stays dual-feasible under
   bound changes), exactly like the reference's node re-solves.  On small

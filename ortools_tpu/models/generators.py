@@ -1,7 +1,7 @@
 """Synthetic problem generators for tests and benchmarks.
 
 The reference ships canned fixture problems (pdlp/test_util.h) and benchmark
-*parsers* but no generators; for TPU benchmarking we need scale-controllable
+*parsers* but no generators; for device benchmarking we need scale-controllable
 instances with block-friendly sparsity (BASELINE.md configs 2 and 5).
 """
 

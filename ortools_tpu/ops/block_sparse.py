@@ -1,6 +1,6 @@
-"""Block-sparse constraint matrices for TPU SpMV/SpMM.
+"""Block-sparse constraint matrices for device SpMV/SpMM.
 
-This is the TPU-native replacement for the reference's sparse-matrix layer
+This is the accelerator replacement for the reference's sparse-matrix layer
 (``ortools/lp_data/sparse.h:64`` SparseMatrix, ``ortools/pdlp`` Eigen CSC) and
 for the Sharder's nnz-mass partitioning (``ortools/pdlp/sharder.h:149-165``):
 
@@ -11,9 +11,12 @@ for the Sharder's nnz-mass partitioning (``ortools/pdlp/sharder.h:149-165``):
       block_rows: int32   [num_blocks]
       block_cols: int32   [num_blocks]
 - All shapes are static (num_blocks padded up), so everything jits once.
-- ``matvec`` / ``rmatvec`` / ``matmat`` lower to a gather + batched block
-  matmul + segment-sum — XLA fuses this into a bandwidth-bound scan on TPU;
-  SpMM with a scenario/node batch axis engages the MXU.
+- ``matmat`` (and ``matvec`` by default) lower to a gather + batched
+  block matmul + segment-sum in XLA; SpMM carries a scenario/node batch
+  axis through the same block product.  With a block-row pointer
+  attached (``with_row_ptr``), 1-D ``matvec`` runs the Triton block-row
+  kernel instead (ops/spmv_triton.py): no gathered or per-block
+  intermediates in device memory, no atomics, a fixed summation order.
 - For multi-chip execution the *block list* is the unit of sharding (the
   analogue of the Sharder's mass-balanced shards): blocks are padded to a
   multiple of the mesh axis size and partitioned contiguously; each device
@@ -35,11 +38,6 @@ import jax.numpy as jnp
 import numpy as np
 import scipy.sparse as sp
 
-from typing import TYPE_CHECKING
-
-if TYPE_CHECKING:  # avoid an import cycle at runtime
-    from ortools_tpu.ops.tiled_spmv import TiledSpmv  # noqa: F401
-
 
 def _ceil_to(x: int, k: int) -> int:
     return -(-x // k) * k
@@ -56,22 +54,22 @@ class BlockSparseMatrix:
     shape: Tuple[int, int]  # logical (m, n)
     padded_shape: Tuple[int, int]  # (M, N), multiples of block shape
     num_real_blocks: int  # blocks before padding
-    # Optional fused-kernel layout (ops/tiled_spmv.py); when present,
-    # 1-D matvec dispatches to the Pallas kernel.
-    tiled: Optional["TiledSpmv"] = None
+    # Block-row pointer (int32 [M/bm + 1]) over blocks sorted by block row;
+    # when present, 1-D matvec runs the Triton kernel (ops/spmv_triton.py).
+    row_ptr: Optional[jax.Array] = None
 
     # -- pytree protocol (shape metadata is static) ---------------------
     def tree_flatten(self):
         return (
-            (self.data, self.block_rows, self.block_cols, self.tiled),
+            (self.data, self.block_rows, self.block_cols, self.row_ptr),
             (self.shape, self.padded_shape, self.num_real_blocks),
         )
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        data, brows, bcols, tiled = children
+        data, brows, bcols, row_ptr = children
         shape, padded_shape, nreal = aux
-        return cls(data, brows, bcols, shape, padded_shape, nreal, tiled)
+        return cls(data, brows, bcols, shape, padded_shape, nreal, row_ptr)
 
     # -- properties -----------------------------------------------------
     @property
@@ -157,17 +155,33 @@ class BlockSparseMatrix:
         extra fill-in.  (Re-tiling Aᵀ at (bm, bn) instead fragments each
         block across up to bn/bm block-rows; on the 4M-nnz bench LP that
         inflated the Aᵀ stream ~16x.)  Mirrors the reference's explicitly
-        stored transpose (ortools/pdlp/sharded_quadratic_program.h:56-66)
-        with a TPU-layout-aware tiling.
+        stored transpose (ortools/pdlp/sharded_quadratic_program.h:56-66).
+        The real blocks are re-sorted by their new block row; padding
+        blocks stay at the end.
         """
+        nreal = self.num_real_blocks
+        perm = jnp.asarray(np.concatenate([
+            np.argsort(np.asarray(self.block_cols)[:nreal], kind="stable"),
+            np.arange(nreal, self.num_blocks),
+        ]))
         return BlockSparseMatrix(
-            data=jnp.transpose(self.data, (0, 2, 1)),
-            block_rows=self.block_cols,
-            block_cols=self.block_rows,
+            data=jnp.transpose(self.data[perm], (0, 2, 1)),
+            block_rows=self.block_cols[perm],
+            block_cols=self.block_rows[perm],
             shape=(self.shape[1], self.shape[0]),
             padded_shape=(self.padded_shape[1], self.padded_shape[0]),
-            num_real_blocks=self.num_real_blocks,
+            num_real_blocks=nreal,
         )
+
+    def with_row_ptr(self) -> "BlockSparseMatrix":
+        """Attach the block-row pointer, so 1-D matvec runs the Triton
+        kernel (blocks must be sorted by block row)."""
+        from ortools_tpu.ops.spmv_triton import block_row_ptr
+
+        ptr = block_row_ptr(np.asarray(self.block_rows),
+                            self.num_real_blocks,
+                            self.padded_shape[0] // self.block_shape[0])
+        return dataclasses.replace(self, row_ptr=jnp.asarray(ptr))
 
     # -- padded vector helpers -------------------------------------------
     def pad_x(self, x: np.ndarray | jax.Array, value: float = 0.0) -> jax.Array:
@@ -185,60 +199,22 @@ class BlockSparseMatrix:
     def unpad_x(self, x: jax.Array) -> jax.Array:
         return x[..., : self.shape[1]] if x.ndim == 1 else x[: self.shape[1]]
 
-    def with_tiled(self, chunk_size: Optional[int] = None,
-                   hi: bool = False) -> "BlockSparseMatrix":
-        """Attach the fused-kernel layout (ops/tiled_spmv.py); with
-        ``hi`` also the bf16 half-bandwidth fast-stream slabs."""
-        from ortools_tpu.ops.tiled_spmv import pack_tiled
-
-        t = pack_tiled(
-            np.asarray(self.data), np.asarray(self.block_rows),
-            np.asarray(self.block_cols), self.num_real_blocks,
-            self.padded_shape, chunk_size=chunk_size, dtype=self.dtype,
-        )
-        if hi:
-            t = t.with_hi()
-        return dataclasses.replace(self, tiled=t)
-
-    @property
-    def has_fast_stream(self) -> bool:
-        return self.tiled is not None and self.tiled.data_hi is not None
-
-    def without_tiled(self) -> "BlockSparseMatrix":
-        return (dataclasses.replace(self, tiled=None)
-                if self.tiled is not None else self)
-
     # -- products --------------------------------------------------------
     def matvec(self, x: jax.Array) -> jax.Array:
         """A @ x with x padded to N; returns padded length-M vector."""
-        if self.tiled is not None and x.ndim == 1:
-            from ortools_tpu.ops import tiled_spmv
+        if self.row_ptr is not None and x.ndim == 1:
+            from ortools_tpu.ops.spmv_triton import block_spmv
 
-            return tiled_spmv.tiled_matvec(
-                self.tiled, x, self.padded_shape[0],
-                interpret=jax.default_backend() != "tpu",
-            )
+            return block_spmv(self.data, self.block_cols, self.row_ptr, x,
+                              self.padded_shape[0])
         return _block_matvec(
             self.data, self.block_rows, self.block_cols, x,
             self.padded_shape[0],
         )
 
-    def matvec_fast(self, x: jax.Array) -> jax.Array:
-        """A @ x through the bf16 half-bandwidth stream when attached
-        (mixed-precision PDHG working pass; ~2^-9 relative rounding on
-        matrix entries), exact ``matvec`` otherwise."""
-        if self.has_fast_stream and x.ndim == 1:
-            from ortools_tpu.ops import tiled_spmv
-
-            return tiled_spmv.tiled_matvec_fast(
-                self.tiled, x, self.padded_shape[0],
-                interpret=jax.default_backend() != "tpu",
-            )
-        return self.matvec(x)
-
     def matmat(self, x: jax.Array) -> jax.Array:
-        """A @ X with X padded [N, k]; returns [M, k].  The k axis (scenario /
-        B&B-node batch) is what engages the MXU."""
+        """A @ X with X padded [N, k]; returns [M, k]; k is the scenario /
+        B&B-node batch axis."""
         return _block_matmat(
             self.data, self.block_rows, self.block_cols, x,
             self.padded_shape[0],
@@ -270,11 +246,9 @@ def _pad_to(v, logical: int, padded: int, value: float, dtype) -> jax.Array:
 def _block_matvec(data, block_rows, block_cols, x, m_padded: int):
     bm, bn = data.shape[1], data.shape[2]
     xb = x.reshape(-1, bn)[block_cols]  # [nb, bn]
-    # HIGHEST: this is the EXACT stream — on TPU the default einsum
-    # precision is a single bf16 pass on the MXU (~2^-8 relative), which
-    # silently caps achievable residuals far above the 1e-4..1e-8
-    # termination tolerances (found as 0/8 batched node LPs converging
-    # on-device while CPU converged 8/8)
+    # HIGHEST: a reduced-precision product (TF32 on a GPU keeps about
+    # three decimal digits) caps achievable residuals far above the
+    # 1e-4..1e-8 termination tolerances
     prod = jnp.einsum("bij,bj->bi", data, xb,
                       precision=jax.lax.Precision.HIGHEST)  # [nb, bm]
     y = jax.ops.segment_sum(prod, block_rows, num_segments=m_padded // bm)
@@ -289,7 +263,7 @@ def _block_matmat(data, block_rows, block_cols, x, m_padded: int):
     prod = jnp.einsum(
         "bij,bjk->bik", data, xb,
         preferred_element_type=data.dtype,
-        precision=jax.lax.Precision.HIGHEST,  # exact stream (see matvec)
+        precision=jax.lax.Precision.HIGHEST,  # see _block_matvec
     )  # [nb, bm, k]
     y = jax.ops.segment_sum(prod, block_rows, num_segments=m_padded // bm)
     return y.reshape(m_padded, k)

@@ -1,6 +1,6 @@
 """Double-float32 (compensated) reductions for on-device f32 accuracy.
 
-TPU f64 is emulated and slow; x64 is global.  These kernels give ~2x-f32
+x64 is global and doubles the bytes every SpMV streams.  These kernels give ~2x-f32
 precision for the few reductions that gate PDHG termination (objective
 gap at 1e-6 relative), staying in native f32 throughout:
 

@@ -1,9 +1,9 @@
 """Device-mesh helpers.
 
-The TPU-native replacement for the reference's ThreadPool-based parallelism
+The device replacement for the reference's ThreadPool-based parallelism
 (``ortools/base/threadpool.h:26``, ``ortools/pdlp/sharder.h``): solvers
 partition work over a named ``jax.sharding.Mesh`` axis and combine partial
-results with XLA collectives over ICI/DCN (SURVEY §2.15 table).
+results with XLA collectives (NCCL between GPUs; SURVEY §2.15 table).
 """
 
 from __future__ import annotations

@@ -87,18 +87,6 @@ class PdhgParams:
     block_shape: Optional[Tuple[int, int]] = None  # None = auto
     num_shards: int = 1  # mesh axis size for the sharded path
     mesh_axis: str = "shards"
-    # Fused Pallas SpMV (ops/tiled_spmv.py).  None = auto: enabled on the
-    # TPU backend for f32 single-shard problems; True/False forces.
-    use_tiled_spmv: Optional[bool] = None
-    # Mixed-precision matrix stream (ops/tiled_spmv.py fast kernel).
-    # "auto"/"mixed": run PDHG majors over the bf16 half-bandwidth slab
-    # stream while ALL termination/restart decisions are recomputed with
-    # the exact f32 kernel; the host controller switches the major loop
-    # to the exact stream permanently once the exactly-measured KKT error
-    # stops improving (the bf16 noise floor).  "exact": f32 stream only.
-    # HBM-bandwidth-bound SpMV makes this ~2x per major on TPU; asymptotic
-    # accuracy is unchanged because acceptance is always exact.
-    stream_precision: str = "auto"
     # Linesearch rule (reference solvers.proto:248): "adaptive"
     # (ADAPTIVE_LINESEARCH_RULE, default) or "malitsky_pock"
     # (arXiv:1608.08883, reference TakeMalitskyPockStep :2211).
@@ -138,6 +126,4 @@ class PdhgParams:
                         "[sufficient_reduction_for_restart, 1]")
         if self.iteration_limit < 0:
             errs.append("iteration_limit must be >= 0")
-        if self.stream_precision not in ("auto", "mixed", "exact"):
-            errs.append("stream_precision must be auto|mixed|exact")
         return errs

@@ -9,7 +9,7 @@ ADAPTIVE_HEURISTIC restart rule (primal_dual_hybrid_gradient.cc:1904).
 The reference finds the exact ball multiplier by median search; here the
 monotone scalar equation phi(lambda) = r^2 is solved by vectorized
 bisection (60 iterations => ~1e-18 relative bracket), which is exact to
-floating point for the restart decision's purposes and maps to TPU as a
+floating point for the restart decision's purposes and maps to the device as a
 fixed-trip-count fori_loop over pure vector ops.
 
 All computation is in the solver's scaled space, matching the reference

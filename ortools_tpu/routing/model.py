@@ -9,7 +9,7 @@ scoped to round 1:
 - first solution: PATH_CHEAPEST_ARC (greedy append, reference
   routing_enums.proto:38) or PARALLEL_CHEAPEST_INSERTION;
 - improvement: 2-opt (intra-route, vectorized delta evaluation over the
-  full matrix — the numpy stand-in for the TPU move-batch design),
+  full matrix — the numpy stand-in for the device move-batch design),
   Or-opt relocate (intra + inter route), inter-route exchange, with
   feasibility re-checked through dimension prefix sums (the role of the
   reference's PathState filters, constraint_solveri.h:3072);

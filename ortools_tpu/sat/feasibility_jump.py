@@ -3,8 +3,8 @@
 Capability parity: ``ortools/sat/feasibility_jump.h:48`` +
 ``constraint_violation.h:33-270`` (LinearIncrementalEvaluator / LsEvaluator)
 — the violation-guided jump heuristic of Luteberget & Sartor 2023 that the
-reference runs in its parallel portfolio.  SURVEY §2.15 calls this "the
-most directly TPU-amenable component": violation evaluation is a sparse
+reference runs in its parallel portfolio.  SURVEY §2.15 calls this the
+component most directly suited to a vector machine: violation evaluation is a sparse
 matrix-vector product and move scoring is columnwise arithmetic.
 
 Round-1 implementation is vectorized numpy on the host with incremental

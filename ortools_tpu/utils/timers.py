@@ -5,7 +5,7 @@ Capability parity: ``ortools/base/timer.h:23`` (WallTimer) and
 
 Deterministic time is the reference's mechanism for reproducible parallel
 solves: solvers advance a calibrated operation-count-based clock instead of
-reading the wall clock.  In the TPU rebuild, deterministic time is naturally
+reading the wall clock.  In this rebuild, deterministic time is naturally
 step-count based (device programs are deterministic), but we keep the same
 API so portfolio workers can be budgeted reproducibly.
 """

@@ -1,12 +1,10 @@
 """Scheduling battery: LCG core vs eager order encoding vs DFS CP engine.
 
-VERDICT r3 task #1 "done" evidence.  The Lawrence la01-la20 instance files
-are not present in this sandbox (zero egress; the reference ships only
-ft06, one taillard 15x15, and PSPLIB files), so the la series is
-represented by SEEDED instances with the exact la shapes (10x5, 15x5,
-20x5, 10x10) — proven optimal by the solver itself, cross-checked between
-independent engines — plus the known-optimum instances that ARE available
-(ft06=55, ft10=930, PSPLIB j301_1=43).
+The Lawrence la01-la20 instance files are not in the repository, so the
+la series is represented by SEEDED instances with the exact la shapes
+(10x5, 15x5, 20x5, 10x10) — proven optimal by the solver itself,
+cross-checked between independent engines — plus the known-optimum
+instances the repository holds (ft06=55, ft10=930).
 
 Large-domain scaling: the same instances with all durations scaled x50
 multiply every horizon/window by 50.  The eager order ladder grows
@@ -23,12 +21,14 @@ import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
 
 import random
 
 from ortools_tpu.scheduling.jobshop import (JobshopInstance, parse_jobshop,
                                             solve_jobshop_cdcl,
                                             solve_jobshop_lcg)
+from test_scheduling_packing import FT06  # noqa: E402
 
 BUDGET = float(os.environ.get("SCHED_BUDGET", "120"))
 
@@ -68,8 +68,8 @@ def run_engine(engine, inst, budget):
 def main():
     suite = []
     # known-optimum instances available in the environment
-    suite.append(("ft06", parse_jobshop(
-        "/root/reference/ortools/scheduling/testdata/ft06"), 55))
+    suite.append(("ft06", parse_jobshop(FT06, is_text=True, name="ft06"),
+                  55))
     suite.append(("ft10", parse_jobshop(
         os.path.join(os.path.dirname(__file__), "..",
                      "tests/data/ft10.jssp")), 930))
@@ -113,23 +113,6 @@ def main():
                 print(f"  !! {eng} claims optimal {r['makespan']} != "
                       f"known {known}")
                 sys.exit(1)
-
-    # RCPSP: PSPLIB j30 instance with known optimum 43
-    from ortools_tpu.scheduling.rcpsp import parse_rcpsp, solve_rcpsp
-    inst = parse_rcpsp(
-        "/root/reference/ortools/scheduling/testdata/j301_1.sm")
-    t0 = time.perf_counter()
-    r = solve_rcpsp(inst, max_time_in_seconds=BUDGET)
-    dt = time.perf_counter() - t0
-    results["psplib_j301_1"] = {
-        "lcg_routed_facade": {"makespan": r.makespan,
-                              "optimal": bool(r.optimal),
-                              "time": round(dt, 2)},
-        "known_optimum": 43,
-    }
-    print(f"{'psplib_j301_1':<22} facade(lcg): {r.makespan}"
-          f"{'*' if r.optimal else ''} {dt:>6.1f}s  known: 43")
-    assert r.makespan == 43 and r.optimal
 
     out = os.path.join(os.path.dirname(__file__), "..",
                        "artifacts", "SCHED_r05.json")

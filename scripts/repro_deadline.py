@@ -1,13 +1,7 @@
-"""Reproduce the edge_packing_300_s15 deadline overrun (VERDICT weak #1)."""
-import os as _os
-import jax as _jax
-try:
-    _jax.config.update("jax_compilation_cache_dir",
-                       "/root/repo/.jax_cache")
-    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
+"""Check that mip.solve keeps its time limit on one battery instance.
 
+Usage: python scripts/repro_deadline.py [time_limit_sec] [instance_name]
+"""
 import sys
 import time
 
@@ -15,6 +9,9 @@ import numpy as np
 
 from ortools_tpu.mip.branch_and_bound import solve as mip_solve
 from ortools_tpu.models.mip_generators import miplib_like_battery
+from ortools_tpu.utils.device import enable_compile_cache
+
+enable_compile_cache()
 
 tlim = float(sys.argv[1]) if len(sys.argv) > 1 else 90.0
 name = sys.argv[2] if len(sys.argv) > 2 else "edge_packing_300_s15"

@@ -86,16 +86,3 @@ def test_block_transpose_exact_and_grid_symmetric():
     np.testing.assert_allclose(np.asarray(out), a.T @ y, rtol=1e-12,
                                atol=1e-12)
     np.testing.assert_allclose(bst.to_dense(), a.T.toarray(), atol=0)
-
-
-def test_block_transpose_tiled_matches():
-    a = sp.random(200, 160, density=0.06,
-                  random_state=np.random.RandomState(5), format="csr")
-    bsm = BlockSparseMatrix.from_scipy(a, dtype=jnp.float32)
-    bst = bsm.block_transpose().with_tiled()
-    y = np.random.default_rng(6).standard_normal(200)
-    from ortools_tpu.ops.tiled_spmv import tiled_matvec
-    out = tiled_matvec(bst.tiled, bst.pad_x(y), bst.padded_shape[0],
-                       interpret=True)
-    np.testing.assert_allclose(np.asarray(out[:160]), a.T @ y, rtol=2e-5,
-                               atol=2e-5)

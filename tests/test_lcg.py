@@ -143,8 +143,9 @@ def test_assumptions_core():
 def test_jobshop_ft06_optimal():
     from ortools_tpu.scheduling.jobshop import (parse_jobshop,
                                                 solve_jobshop_lcg)
-    inst = parse_jobshop(
-        "/root/reference/ortools/scheduling/testdata/ft06")
+    from test_scheduling_packing import FT06
+
+    inst = parse_jobshop(FT06, is_text=True, name="ft06")
     r = solve_jobshop_lcg(inst, max_time_in_seconds=60)
     assert r is not None and r.optimal and r.makespan == 55
 

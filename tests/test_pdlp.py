@@ -224,7 +224,7 @@ def test_linf_norm_and_no_restarts():
 
 
 def test_f32_runs():
-    # f32 is the TPU speed mode: looser tolerance, still converges on easy LPs
+    # f32 is the device speed mode: looser tolerance, still converges on easy LPs
     qp = random_lp(30, 20, density=0.4, seed=2)
     ref = scipy_solve(qp)
     r = solve(qp, PdhgParams(
